@@ -10,36 +10,61 @@ float kernel first, double-precision host rescue for underflows
 import numpy as np
 
 from ... import constants as C
-from ...utils.platform import backend_name
+from ...utils.platform import pinned_to_cpu
 from . import golden, prep
 
-
-def default_engine():
-    return "pallas" if backend_name() == "tpu" else "xla"
+ENGINES = ("auto", "cuda", "xla", "native")
 
 
-def pairhmm_raw(batch, engine="auto"):
-    """Run the forward kernel over a PairBatch -> (GH, GR, 8, 128) np.f32.
+class NoDeviceError(RuntimeError):
+    """`auto` found no GPU and the process is not pinned to the CPU."""
 
-    Kernel modules import lazily: the Pallas stack costs ~1s of interpreter
-    start and the CPU/native production path never touches it."""
-    if engine == "auto":
-        engine = default_engine()
-    if engine == "pallas":
-        from .kernel import pairhmm_pallas
-        out = pairhmm_pallas(batch.trans, batch.rbase, batch.rlen,
-                             batch.hbase, batch.hlen)
-    elif engine == "pallas_interpret":
-        from .kernel import pairhmm_pallas
-        out = pairhmm_pallas(batch.trans, batch.rbase, batch.rlen,
-                             batch.hbase, batch.hlen, interpret=True)
-    elif engine == "xla":
-        from .xla import pairhmm_xla
-        out = pairhmm_xla(batch.trans, batch.rbase, batch.rlen,
-                          batch.hbase, batch.hlen)
-    else:
-        raise ValueError(f"unknown pairhmm engine: {engine}")
-    return np.asarray(out)
+
+def choose_engine(requested="auto"):
+    """Resolve a PairHMM engine name; the one place "auto" is decided.
+
+    - cuda: the Hopper kernel (cuda.py) on JAX's GPU backend;
+    - native: the host C++ engine, only when the process is pinned to the
+      CPU (JAX_PLATFORMS=cpu, as tests and CPU-only users run);
+    - xla: the XLA scan on JAX's default device, by request only.
+
+    "auto" with neither a GPU nor the CPU pin is an error: scoring never
+    drops to the host unasked."""
+    if requested not in ENGINES:
+        raise ValueError(f"unknown pairhmm engine: {requested!r}")
+    if requested != "auto":
+        return requested
+    if pinned_to_cpu():
+        return "native"
+    import jax
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return "cuda"
+    raise NoDeviceError(
+        f"no GPU found for PairHMM scoring (JAX backend: {backend!r}); "
+        "set JAX_PLATFORMS=cpu to score on the host")
+
+
+def engine_device(engine):
+    """What an engine runs on, for the start-of-run log line."""
+    if engine == "native":
+        return "host CPU"
+    import jax
+    devices = jax.local_devices()
+    return (f"{len(devices)} x {devices[0].device_kind} "
+            f"({devices[0].platform})")
+
+
+def indexed_launch(engine):
+    """The compact indexed launch (scheduler ABI) of a device engine: the
+    Hopper kernel for cuda, the XLA scan for xla."""
+    if engine == "cuda":
+        from .cuda import pairhmm_cuda_indexed
+        return pairhmm_cuda_indexed
+    if engine == "xla":
+        from .compact import pairhmm_indexed_compact
+        return pairhmm_indexed_compact
+    raise ValueError(f"pairhmm engine {engine!r} has no device launch")
 
 
 def log10_with_rescue(raw_matrix, reads, haps, pcr_model="CONSERVATIVE",
@@ -85,8 +110,8 @@ def log10_with_rescue(raw_matrix, reads, haps, pcr_model="CONSERVATIVE",
             raws = _rescue_batch_f64(rescued, reads, hap_bytes, pcr_model,
                                      min_quality_threshold)
         except RuntimeError:
-            # no CPU backend registered (JAX_PLATFORMS pins the TPU
-            # plugin only): fall through to the numpy golden forward
+            # no CPU backend registered (JAX_PLATFORMS names none): fall
+            # through to the numpy golden forward
             raws = None
     else:
         raws = None
@@ -152,20 +177,16 @@ def poorly_modelled_mask(read_lengths, lik_by_read):
 def compute_likelihoods(reads, haps, pcr_model="CONSERVATIVE",
                         min_quality_threshold=C.MIN_QUALITY_THRESHOLD,
                         engine="auto"):
-    """Score all (read, hap) pairs.
+    """Score all (read, hap) pairs of one region.
 
     Returns (likelihoods, kept_indices): likelihoods is an
     (n_haps, n_kept_reads) float64 log10 matrix; kept_indices maps its read
-    columns back into `reads` after poorly-modelled-read removal.
+    columns back into `reads` after poorly-modelled-read removal. Runs as a
+    one-job PairHMMScheduler batch, so every engine goes through the same
+    dispatch as the pipeline.
     """
-    batch = prep.build_pair_batch(
-        reads, haps, pcr_model=pcr_model,
-        min_quality_threshold=min_quality_threshold)
-    raw = pairhmm_raw(batch, engine=engine)
-    lik_hr = log10_with_rescue(batch.result_matrix(raw), reads, haps,
-                               pcr_model=pcr_model,
-                               min_quality_threshold=min_quality_threshold)
-    lik_rh = normalize_likelihoods(lik_hr.T)
-    drop = poorly_modelled_mask([len(r.bases) for r in reads], lik_rh)
-    kept = np.nonzero(~drop)[0]
-    return lik_rh[kept].T.copy(), kept
+    from ...pipeline.scheduler import PairHMMScheduler
+    sched = PairHMMScheduler(engine=engine,
+                             min_quality_threshold=min_quality_threshold)
+    sched.submit(0, reads, haps, pcr_model=pcr_model)
+    return sched.run()[0]

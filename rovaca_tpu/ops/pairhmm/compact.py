@@ -5,12 +5,11 @@ The dense layout ships 8 float32 transition/emission channels per read base
 it is a pure function of small integers, so this path ships just the
 integers — per-base quals, gap-open, gap-continuation (uint8, after host-side
 MQ capping and the native PCR/STR caps) and 4-bit base codes — and
-materializes channels on device from (128,) probability tables. ~10x fewer
-host->device bytes for reads, ~500x for haplotypes; on PCIe-attached (or
-tunneled) hosts transfer is the e2e bottleneck once the host pipeline is
-vectorized. The reference has no analogous stage (in-process SIMD reads its
-own memory; reference: src/haplotypecaller/pairhmm/pairhmm_internal.cpp:
-413-483 does the table lookups on the CPU inline).
+materializes channels on device from (128,) probability tables: ~10x fewer
+host->device bytes for reads, ~500x for haplotypes. The reference has no
+analogous stage (in-process SIMD reads its own memory; reference:
+src/haplotypecaller/pairhmm/pairhmm_internal.cpp:413-483 does the table
+lookups on the CPU inline).
 """
 
 import dataclasses
@@ -23,8 +22,7 @@ import numpy as np
 from ... import constants as C
 from .. import gatk_math
 from . import prep
-from .indexed import pairhmm_pallas_indexed
-from .kernel import pairhmm_pallas
+from .xla import pairhmm_xla_indexed
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,20 +66,14 @@ def broadcast_haps(hcode):
 
 
 @jax.jit
-def pairhmm_pallas_compact(q, gi, gc, rbase8, rlen, hcode8, hlen):
-    """Compact-input equivalent of kernel.pairhmm_pallas."""
-    trans = materialize_channels(q, gi, gc)
-    return pairhmm_pallas(trans, rbase8.astype(jnp.int32), rlen,
-                          broadcast_haps(hcode8), hlen)
-
-
-@jax.jit
 def pairhmm_indexed_compact(q, gi, gc, rbase8, rlen, hcode8, hlen,
                             hidx, ridx):
-    """Compact-input equivalent of indexed.pairhmm_pallas_indexed."""
+    """The compact indexed launch in XLA: channels and lane-broadcast hap
+    tiles materialize on device, then the scan path scores the G tile
+    pairs. Same ABI and output as cuda.pairhmm_cuda_indexed."""
     trans = materialize_channels(q, gi, gc)
-    return pairhmm_pallas_indexed(trans, rbase8.astype(jnp.int32), rlen,
-                                  broadcast_haps(hcode8), hlen, hidx, ridx)
+    return pairhmm_xla_indexed(trans, rbase8.astype(jnp.int32), rlen,
+                               broadcast_haps(hcode8), hlen, hidx, ridx)
 
 
 @dataclasses.dataclass

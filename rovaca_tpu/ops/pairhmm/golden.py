@@ -13,7 +13,7 @@ with boundary row D[0][j] = 2^120/hapLen (float) or 2^1020/hapLen (double),
 final result sum_j(M[L][j] + I[L][j]).
 
 Note: the reference's AVX kernel evaluates M as ((M*mm + I*gapm) + D*gapm);
-we factor (I+D)*gapm everywhere (golden, XLA, Pallas alike) — a ~1 ulp/cell
+we factor (I+D)*gapm everywhere (golden, XLA, CUDA alike) — a ~1 ulp/cell
 reassociation well inside the float->double rescue guard band.
 """
 

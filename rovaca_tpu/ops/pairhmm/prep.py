@@ -3,11 +3,11 @@
 Converts reads + haplotypes into padded, tiled device arrays. Semantics mirror
 the reference's decompression/prepare stages (reference: src/haplotypecaller/
 pairhmm/pairhmm_internal.cpp:413-483) and the PCR/STR error model
-(pairhmm_internal.cpp:65-159), but the layout is TPU-native:
+(pairhmm_internal.cpp:65-159), in a tiled layout:
 
-- pair dimension = (8 haplotypes) x (128 reads) per vector tile
-- per-read transition/emission values packed as 8 channels in the sublane dim
-- haplotype base codes broadcast across the read lane dim
+- pair dimension = (8 haplotypes) x (128 reads) per tile
+- per-read transition/emission values packed as 8 channels
+- haplotype base codes broadcast across the 128 read lanes
 
 Channel order (axis of size 8): [mm, gapm, mi, ii, md, dd, distm, one_distm].
 """
@@ -19,8 +19,8 @@ import numpy as np
 from ... import constants as C
 from .. import gatk_math
 
-HAP_TILE = 8     # haplotypes per tile (sublane dim)
-READ_TILE = 128  # reads per tile (lane dim)
+HAP_TILE = 8     # haplotypes per tile
+READ_TILE = 128  # reads per tile
 
 # ASCII -> bitmask base codes; match test is (r & h) != 0
 # (reference: pairhmm_internal.cpp:27-43)
@@ -205,7 +205,7 @@ class PairBatch:
       rbase:    (GR, Lr, READ_TILE)    i32 — read base codes
       rlen:     (GR, 1, READ_TILE)     i32 — read lengths (0 = padding lane)
       hbase:    (GH, Lh, HAP_TILE, READ_TILE) i32 — hap codes, lane-broadcast
-      hlen:     (GH, HAP_TILE, 1)      i32 — hap lengths (0 = padding sublane)
+      hlen:     (GH, HAP_TILE, 1)      i32 — hap lengths (0 = padding slot)
       n_reads, n_haps: true counts before padding
     """
     trans: np.ndarray

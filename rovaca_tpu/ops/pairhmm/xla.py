@@ -1,12 +1,13 @@
 """Pure-XLA PairHMM forward over PairBatch tensors.
 
-Drop-in for the Pallas kernel (same tensor contract): a ``lax.scan`` over read
-rows, each step fully vectorized over (hap-column, pair) with the in-row
-deletion recurrence solved by an associative scan (first-order affine
-recurrence D[j] = md*M[j-1] + dd*D[j-1] composed in log2(Lh) steps).
+A ``lax.scan`` over read rows, each step fully vectorized over (hap-column,
+pair) with the in-row deletion recurrence solved by an associative scan
+(first-order affine recurrence D[j] = md*M[j-1] + dd*D[j-1] composed in
+log2(Lh) steps).
 
-This is the CPU/test fallback and the path used under shard_map for the
-multi-chip dryrun. Model semantics: see golden.py / reference
+The plain reference for the Hopper kernel (cuda.py), the `xla` engine the
+tests run, the float64 rescue on the CPU backend, and the scorer of the
+virtual-device mesh dryrun. Model semantics: see golden.py / reference
 src/haplotypecaller/pairhmm/rovaca/avx_512_float.cc:29-183.
 """
 
@@ -95,13 +96,10 @@ def pairhmm_xla(trans, rbase, rlen, hbase, hlen):
 
 @functools.partial(jax.jit, static_argnames=())
 def pairhmm_xla_indexed(trans, rbase, rlen, hbase, hlen, hidx, ridx):
-    """Indexed-pair ABI of the Pallas indexed kernel, in pure XLA.
-
-    Same contract as indexed.pairhmm_pallas_indexed: tile stacks plus a
-    (G,) pair list of (hap-tile, read-tile) indices; returns (G, 8, 128)
-    raw probabilities. Gathers ride the device, so this is the exact
-    production wire format scored by the scan path — used on CPU meshes
-    (multi-chip dryrun) where Pallas TPU kernels don't lower.
+    """Indexed-pair ABI in pure XLA: tile stacks plus a (G,) pair list of
+    (hap-tile, read-tile) indices; returns (G, 8, 128) raw probabilities.
+    Gathers ride the device. An index of -1 reads the last tile (numpy
+    wrap-around); the scheduler ignores those slots.
     """
     over_pairs = jax.vmap(_forward_one, in_axes=(0, 0, 0, 0, 0))
     return over_pairs(trans[ridx], rbase[ridx], rlen[ridx],

@@ -1,4 +1,4 @@
-"""Multi-chip / multi-process parallel runtime.
+"""Multi-device / multi-process parallel runtime.
 
 Re-exports resolve lazily: ``sharding`` imports jax (a ~2s interpreter-start
 cost), and pure-CPU pipeline runs only need ``host_executor``.

@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) execution via the JAX distributed runtime.
+"""Multi-host execution via the JAX distributed runtime.
 
 The reference is strictly single-node (SURVEY §2.14); its parallelism
 contract — data parallelism over genomic coordinates with an ordered writer
@@ -11,8 +11,9 @@ after a cross-process barrier.
 
 Wire-up:
   - `maybe_init_distributed()` initialises `jax.distributed` from standard
-    env (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
-    the cloud-TPU auto-detected equivalents).
+    env (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID), or
+    lets jax auto-detect the cluster (ROVACA_AUTO_DISTRIBUTED, e.g. under
+    SLURM or Open MPI on GPU clusters).
   - `run_distributed(args)` is the per-process driver the CLI calls when
     `jax.process_count() > 1`.
 """
@@ -35,7 +36,7 @@ def maybe_init_distributed():
                 num_processes=int(nproc),
                 process_id=int(pid) if pid is not None else None)
         elif os.environ.get("ROVACA_AUTO_DISTRIBUTED"):
-            # cloud TPU pods: addresses are auto-detected by jax
+            # cluster environments jax detects on its own
             jax.distributed.initialize()
     except (RuntimeError, ValueError):
         pass  # already initialised (or single-process)

@@ -6,20 +6,19 @@ devices; every device scores its own shard's PairHMM batches inside ONE
 jitted `shard_map` step; results all_gather in shard (== genome) order; the
 host genotypes per shard and merges records coordinate-ordered — the
 reference's source_id-ordered writer merge (reference:
-src/haplotypecaller/writer/writer.cpp:147-196) expressed as an ICI
-collective.
+src/haplotypecaller/writer/writer.cpp:147-196) expressed as a collective.
 
-The device step consumes the PRODUCTION wire format: the compact integer
+The device step consumes the production wire format: the compact integer
 launch layout built by ops/pairhmm/compact.py (per-base quals/gap
-phreds/base codes + an indexed (hap-tile, read-tile) pair list), with
-probability channels materialized on device. Regions may span multiple
-read/hap tiles. The scorer is the Pallas indexed kernel on TPU meshes and
-the identical-ABI XLA scan path on CPU meshes (virtual-device dryrun).
+phreds/base codes + an indexed (hap-tile, read-tile) pair list). Regions
+may span multiple read/hap tiles. The scorer is the launch of the engine
+api.choose_engine picks: the CUDA kernel on GPU meshes, the identical-ABI
+XLA scan elsewhere (the virtual CPU-device dryrun).
 
 `pipeline_dryrun(n_devices)` drives regions → assembly → sharded PairHMM →
 genotyping → ordered merge end-to-end on an n-device mesh and asserts the
-merged records equal an unsharded run — the driver executes it on N virtual
-CPU devices to validate the multi-chip path without N real chips.
+merged records equal an unsharded run; on N virtual CPU devices it
+validates the multi-device path without N cards.
 """
 
 import numpy as np
@@ -50,17 +49,13 @@ def sharded_pipeline_step(mesh, q, gi, gc, rbase, rlen, hcode, hlen,
     import jax
     from jax.sharding import PartitionSpec as P
 
-    from ..ops.pairhmm.compact import broadcast_haps, materialize_channels
-    if jax.default_backend() == "tpu":
-        from ..ops.pairhmm.indexed import pairhmm_pallas_indexed as scorer
-    else:
-        from ..ops.pairhmm.xla import pairhmm_xla_indexed as scorer
+    from ..ops.pairhmm.api import choose_engine, indexed_launch
+    from ..utils.platform import pinned_to_cpu
+    launch = indexed_launch("xla" if pinned_to_cpu() else choose_engine())
 
     def step(q, gi, gc, rbase, rlen, hcode, hlen, hidx, ridx):
-        trans = materialize_channels(q[0], gi[0], gc[0])
-        hbase = broadcast_haps(hcode[0])
-        raw = scorer(trans, rbase[0].astype(np.int32), rlen[0],
-                     hbase, hlen[0], hidx[0], ridx[0])
+        raw = launch(q[0], gi[0], gc[0], rbase[0], rlen[0], hcode[0],
+                     hlen[0], hidx[0], ridx[0])
         return jax.lax.all_gather(raw, axis_name)
 
     spec = P(axis_name)

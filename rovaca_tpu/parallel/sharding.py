@@ -1,15 +1,15 @@
-"""Interval-sharded data parallelism over a TPU device mesh.
+"""Interval-sharded data parallelism over a device mesh.
 
 The reference's entire parallelism story is single-node pipelined data
 parallelism over genomic coordinates (reference: src/haplotypecaller/
-ActiveRegion/ActiveMainThread.cpp:9-56, haplotypecaller.cpp:45-181). The
-TPU-native equivalent (BASELINE.json north star):
+ActiveRegion/ActiveMainThread.cpp:9-56, haplotypecaller.cpp:45-181). Here
+(BASELINE.json north star):
 
 - the FASTA dict is replicated per host; genomic intervals are sharded
   data-parallel across the mesh with boundary padding so active regions never
   span a shard cut;
 - each shard runs the full pipeline on its intervals, with PairHMM batches on
-  its chips;
+  its cards;
 - per-shard VCF record streams merge in coordinate order (shard order ==
   genome order), mirroring the reference's source_id-ordered writer merge
   (reference: src/haplotypecaller/writer/writer.cpp:147-196) across devices.

@@ -115,11 +115,6 @@ class HCArgs:
     profile_dir: str = None        # jax.profiler trace output directory
 
 
-def _enable_persistent_compilation_cache():
-    from ..utils.platform import enable_persistent_compilation_cache
-    enable_persistent_compilation_cache()
-
-
 def parse_span(span):
     contig, _, rng = span.partition(":")
     if not rng:
@@ -152,20 +147,22 @@ class HaplotypeCaller:
         if args.recal_table:
             from ..reads.bqsr import BQSRReadTransformer
             self.bqsr = BQSRReadTransformer.from_table(args.recal_table)
-        self.stats = {"reads": 0, "filtered": 0, "regions": 0, "calls": 0}
+        self.stats = {"reads": 0, "filtered": 0, "regions": 0, "calls": 0,
+                      "pairhmm_device_launches": 0, "pairhmm_device_pairs": 0,
+                      "pairhmm_native_calls": 0}
 
     def run(self):
         args = self.args
-        # the persistent-cache config costs a ~2s jax import; native-
-        # verdict TPU attachments never compile, so defer it to the
-        # scheduler's device entries (which call it right before jit)
-        from .scheduler import PairHMMScheduler
-        if PairHMMScheduler._load_probe_cache() != "native":
-            _enable_persistent_compilation_cache()
+        from ..ops.pairhmm.api import choose_engine, engine_device
         from ..utils import logging as rlog
+        from ..utils.platform import enable_persistent_compilation_cache
+        enable_persistent_compilation_cache()
         log = rlog.init(args.log_level)
         rlog.banner({k: v for k, v in dataclasses.asdict(args).items()
                      if v is not None})
+        self.engine = choose_engine(args.pairhmm_engine)
+        log.info("pairhmm engine: %s on %s", self.engine,
+                 engine_device(self.engine))
         span = parse_span(args.target_span) if args.target_span else None
         reader = self._open_reader(span)
         # peek header for sample name
@@ -460,24 +457,6 @@ class HaplotypeCaller:
             n_reads = len(reads)
         pos_sorted = bool(np.all(pos_arr[1:] >= pos_arr[:-1]))
 
-        if not getattr(self, "_prewarmed", False) and \
-                args.pairhmm_engine in ("auto", "pallas"):
-            # compile the canonical device launch shapes in the background
-            # while the host runs activity profiling + assembly below —
-            # but NOT when a cached auto-probe verdict already pins this
-            # machine to the native engine (the compiles would only steal
-            # host CPU from the pipeline)
-            self._prewarmed = True
-            from .scheduler import PairHMMScheduler
-            verdict = (PairHMMScheduler._load_probe_cache()
-                       if args.pairhmm_engine == "auto" else None)
-            if verdict != "native":
-                if is_cols:
-                    max_len = int(reads.seq_ln[:4096].max())
-                else:
-                    max_len = int(max(len(r.bases) for r in reads[:4096]))
-                PairHMMScheduler.prewarm_async(max_len)
-
         # left bound for sorted selections: a read at pos < start-max_span
         # cannot reach `start`, so the end-test only needs the
         # [start-max_span, stop) pos slice instead of a prefix scan from 0
@@ -518,7 +497,7 @@ class HaplotypeCaller:
         def finish_window(results, pw):
             """Genotype + emit one window whose device batch was dispatched
             earlier. Runs while the NEXT flush group occupies the device —
-            the TPU analogue of the reference's producer/consumer overlap
+            the analogue of the reference's producer/consumer overlap
             (haplotypecaller.cpp:117-146)."""
             nonlocal next_available
             prepared, ready_calls, ordered, w_start, rbytes = pw
@@ -583,8 +562,9 @@ class HaplotypeCaller:
 
         def new_sched():
             return PairHMMScheduler(
-                engine=args.pairhmm_engine,
-                min_quality_threshold=args.base_quality_threshold)
+                engine=self.engine,
+                min_quality_threshold=args.base_quality_threshold,
+                counters=self.stats)
 
         flush_tiles = int(os.environ.get("ROVACA_FLUSH_TILES", "256"))
         group_sched = new_sched()

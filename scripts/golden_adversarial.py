@@ -1,8 +1,8 @@
 """Adversarial golden corpora: sequence contexts that break naive callers.
 
-Round-5 requirement (VERDICT #6): every prior golden corpus drew its
-reference uniformly at random, which under-represents exactly the contexts
-the reference's PCR model and assembler were built for
+Every earlier golden corpus drew its reference uniformly at random, which
+under-represents exactly the contexts the reference's PCR model and
+assembler were built for
 (pairhmm_internal.cpp:65-119 STR detection; hc_assemble_* dangling ends).
 This generator plants:
 

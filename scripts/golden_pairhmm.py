@@ -2,7 +2,7 @@
 
 Feeds identical (haplotypes, reads) cases to the reference's AVX512 PairHMM
 (via .refbuild/bin/pairhmm_harness, which drives rovaca::call_pairhmm exactly
-like haplotypecaller_engine.cpp:238-250) and to our TPU/XLA engine
+like haplotypecaller_engine.cpp:238-250) and to our engines
 (ops.pairhmm.compute_likelihoods), then compares the post-normalization
 log10 likelihood matrices column-aligned by read name.
 

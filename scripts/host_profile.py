@@ -12,9 +12,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/rovaca_jax"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
 
 import numpy as np  # noqa: E402
 

@@ -307,3 +307,64 @@ def make_standard_case(tmpdir, rng=None, coverage=24, contig="chr20",
     write_fasta(fasta_path, {contig: ref})
     write_test_bam(bam_path, reads, contig, length)
     return fasta_path, bam_path, truth, ref
+
+
+def _mutate_hap(rng, seq, n_snp=2, max_indel=6):
+    """A haplotype differing from `seq` by a few SNPs and one short indel."""
+    s = list(seq)
+    for _ in range(n_snp):
+        i = int(rng.integers(0, len(s)))
+        s[i] = "ACGT"[("ACGT".index(s[i]) + int(rng.integers(1, 4))) % 4]
+    i = int(rng.integers(1, len(s) - max_indel))
+    n = int(rng.integers(1, max_indel + 1))
+    if rng.random() < 0.5:
+        s[i:i] = list(random_ref(rng, n))
+    else:
+        del s[i:i + n]
+    return "".join(s)
+
+
+def pairhmm_region(rng, n_reads, n_haps, read_len=150, hap_len=(300, 380),
+                   error_rate=0.01, noisy=0.0):
+    """One region's PairHMM inputs at real widths: a reference haplotype of
+    `hap_len` bases (inclusive range), n_haps - 1 alternates of it (SNPs and
+    a 1-6 bp indel each), and n_reads reads of read_len bases sampled from
+    the haplotypes with phred 20-40 quals and substitution errors.
+    A fraction `noisy` of the reads instead has an error rate drawn from
+    [0, 0.3], so their raw probabilities straddle the float32 rescue
+    threshold (C.MIN_ACCEPTED_F32). Returns (reads, haps)."""
+    ref = random_ref(rng, int(rng.integers(hap_len[0], hap_len[1] + 1)))
+    haps = [ref] + [_mutate_hap(rng, ref) for _ in range(n_haps - 1)]
+    reads = []
+    for k in range(n_reads):
+        hap = haps[int(rng.integers(0, n_haps))]
+        s = int(rng.integers(0, max(1, len(hap) - read_len)))
+        bases = np.array(list(hap[s:s + read_len]))
+        rate = error_rate
+        if noisy and rng.random() < noisy:
+            rate = rng.uniform(0, 0.3)
+        err = rng.random(len(bases)) < rate
+        bases[err] = rng.choice(list("ACGT"), size=int(err.sum()))
+        reads.append(ReadRecord(
+            name=f"r{k}", flag=0, ref_id=0, pos=s, mapping_quality=60,
+            cigar=f"{len(bases)}M", bases="".join(bases),
+            quals=rng.integers(20, 41, size=len(bases)), contig="chr1"))
+    return reads, [h.encode() for h in haps]
+
+
+def pairhmm_launch(rng, g, hap_len, read_len=150, noisy=0.0):
+    """One scheduler launch of `g` (hap tile, read tile) pairs, g a multiple
+    of 64: g // 64 regions of 1024 reads x 64 haplotypes (8 read tiles x 8
+    hap tiles each) from pairhmm_region. Returns (jobs, spans, args) as
+    PairHMMScheduler.build_launches does."""
+    from rovaca_tpu.ops.pairhmm import compact
+    from rovaca_tpu.pipeline.scheduler import PairHMMScheduler
+
+    sched = PairHMMScheduler()
+    for k in range(g // 64):
+        reads, haps = pairhmm_region(rng, 1024, 64, read_len=read_len,
+                                     hap_len=hap_len, noisy=noisy)
+        job = sched.submit(k, reads, haps)
+        job.batch = compact.build_pair_batch_compact(reads, haps)
+    (launch,) = sched.build_launches()
+    return launch

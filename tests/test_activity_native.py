@@ -125,8 +125,8 @@ def test_window_clamp_and_ref_view():
 
 
 def test_contig_edge_pairs():
-    """Overlapping soft-clipped mates at contig start/end (the round-3
-    divergence footprint: VERDICT weak#2)."""
+    """Overlapping soft-clipped mates at contig start/end (where the
+    round-3 outputs diverged)."""
     reads = []
     # mate at contig start: adaptor boundary can be 0
     reads.append(ReadRecord(name="e0", flag=0x1 | 0x2 | 0x10, ref_id=0,

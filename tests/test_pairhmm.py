@@ -1,4 +1,4 @@
-"""PairHMM correctness: golden scalar vs XLA vs Pallas (interpret mode)."""
+"""PairHMM correctness: golden scalar vs XLA vs the native host engine."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,6 @@ import pytest
 from rovaca_tpu import constants as C
 from rovaca_tpu.ops import gatk_math
 from rovaca_tpu.ops.pairhmm import api, golden, prep
-from rovaca_tpu.ops.pairhmm.kernel import pairhmm_pallas
 from rovaca_tpu.ops.pairhmm.xla import pairhmm_xla
 
 from conftest import FakeRead, random_read, mutate
@@ -117,29 +116,6 @@ class TestXlaVsGolden:
         got = batch.result_matrix(raw)
         want = golden_matrix(reads, haps, np.float32)
         np.testing.assert_allclose(got, want, rtol=2e-4)
-
-
-class TestPallasVsGolden:
-    def test_matches_golden_interpret(self, rng):
-        reads, haps = make_case(rng, n_reads=4, n_haps=3, read_len=25,
-                                hap_len=40)
-        batch = prep.build_pair_batch(reads, haps)
-        raw = np.asarray(pairhmm_pallas(batch.trans, batch.rbase, batch.rlen,
-                                        batch.hbase, batch.hlen,
-                                        interpret=True))
-        got = batch.result_matrix(raw)
-        want = golden_matrix(reads, haps, np.float32)
-        np.testing.assert_allclose(got, want, rtol=2e-4)
-
-    def test_matches_xla_exact_padding(self, rng):
-        reads = [random_read(rng, L) for L in (12, 30, 18)]
-        haps = ["".join(rng.choice(list("ACGT"), size=L)) for L in (20, 45)]
-        batch = prep.build_pair_batch(reads, haps)
-        a = np.asarray(pairhmm_pallas(batch.trans, batch.rbase, batch.rlen,
-                                      batch.hbase, batch.hlen, interpret=True))
-        b = np.asarray(pairhmm_xla(batch.trans, batch.rbase, batch.rlen,
-                                   batch.hbase, batch.hlen))
-        np.testing.assert_allclose(a, b, rtol=2e-5)
 
 
 class TestApi:
@@ -274,30 +250,6 @@ class TestCompactBatch:
         np.testing.assert_array_equal(comp.hlen, dense.hlen)
         hbase = np.asarray(compact.broadcast_haps(comp.hcode))
         np.testing.assert_array_equal(hbase, dense.hbase)
-
-    def test_compact_kernel_matches_dense_interpret(self):
-        import jax.numpy as jnp
-        from rovaca_tpu.ops.pairhmm import compact
-        from rovaca_tpu.ops.pairhmm.kernel import pairhmm_pallas
-
-        reads, haps = self._random_case(seed=9, n_reads=6, n_haps=3)
-        dense = prep.build_pair_batch(reads, haps, len_buckets=(64, 128),
-                                      hap_len_buckets=(256,))
-        comp = compact.build_pair_batch_compact(reads, haps,
-                                                len_buckets=(64, 128),
-                                                hap_len_buckets=(256,))
-        want = np.asarray(pairhmm_pallas(
-            dense.trans, dense.rbase, dense.rlen, dense.hbase, dense.hlen,
-            interpret=True))
-        got = np.asarray(pairhmm_pallas(
-            np.asarray(compact.materialize_channels(comp.q, comp.gi,
-                                                    comp.gc)),
-            comp.rbase.astype(np.int32), comp.rlen,
-            np.asarray(compact.broadcast_haps(comp.hcode)), comp.hlen,
-            interpret=True))
-        m_want = dense.result_matrix(want)
-        m_got = comp.result_matrix(got)
-        np.testing.assert_allclose(m_got, m_want, rtol=1e-6)
 
 
 class TestQualMods:

@@ -1,5 +1,8 @@
 """Sharding: interval math, merge, mesh step (virtual devices)."""
 
+import os
+import sys
+
 import numpy as np
 
 from rovaca_tpu.parallel.sharded_runner import merge_shard_vcfs
@@ -202,3 +205,72 @@ class TestBgzfMerge:
         counts = merge_shard_vcfs([a], out)
         assert counts == [1]
         assert "chr1\t10" in open(out).read()
+
+
+class TestShardCards:
+    """--shards on a GPU host: one card per shard process, at most one live
+    process per card, the rest queued."""
+
+    def _script(self, tmp_path):
+        # each process logs (start, end, CUDA_VISIBLE_DEVICES) to its own file
+        return [sys.executable, "-c",
+                "import os, sys, time\n"
+                "t0 = time.time(); time.sleep(0.3)\n"
+                "open(sys.argv[1], 'w').write('%r %r %s' % (t0, time.time(),"
+                " os.environ.get('CUDA_VISIBLE_DEVICES', '-')))"]
+
+    def _spans(self, tmp_path, n):
+        out = []
+        for k in range(n):
+            t0, t1, card = (tmp_path / f"p{k}").read_text().split()
+            out.append((float(t0), float(t1), card))
+        return out
+
+    def test_one_card_per_process_and_queue(self, tmp_path):
+        from rovaca_tpu.parallel.sharded_runner import run_processes
+        argvs = [self._script(tmp_path) + [str(tmp_path / f"p{k}")]
+                 for k in range(5)]
+        run_processes(argvs, dict(os.environ), cards=["0", "1"])
+        spans = self._spans(tmp_path, 5)
+        assert {c for _, _, c in spans} == {"0", "1"}
+        for card in ("0", "1"):
+            mine = sorted((a, b) for a, b, c in spans if c == card)
+            # a card's processes never overlap in time
+            assert all(b <= a2 for (_, b), (a2, _) in zip(mine, mine[1:]))
+
+    def test_cpu_shards_run_together(self, tmp_path):
+        from rovaca_tpu.parallel.sharded_runner import run_processes
+        argvs = [self._script(tmp_path) + [str(tmp_path / f"p{k}")]
+                 for k in range(3)]
+        env = {k: v for k, v in os.environ.items()
+               if k != "CUDA_VISIBLE_DEVICES"}
+        run_processes(argvs, env)
+        spans = self._spans(tmp_path, 3)
+        assert all(c == "-" for _, _, c in spans)
+        assert max(a for a, _, _ in spans) < min(b for _, b, _ in spans)
+
+    def test_failed_shard_raises(self, tmp_path):
+        import pytest
+        from rovaca_tpu.parallel.sharded_runner import run_processes
+        with pytest.raises(RuntimeError, match="shard process failed"):
+            run_processes([[sys.executable, "-c", "raise SystemExit(3)"]],
+                          dict(os.environ), cards=["0"])
+
+    def test_visible_cards_from_env(self, monkeypatch):
+        from rovaca_tpu.parallel import sharded_runner
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2, 3")
+        assert sharded_runner.visible_cards() == ["2", "3"]
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+        assert sharded_runner.visible_cards() == []
+
+    def test_unpinned_shards_need_a_gpu(self, monkeypatch, tmp_path):
+        import pytest
+        from rovaca_tpu.io.fasta import write_fasta
+        from rovaca_tpu.ops.pairhmm.api import NoDeviceError
+        from rovaca_tpu.parallel import sharded_runner
+        fa = str(tmp_path / "ref.fa")
+        write_fasta(fa, {"chr1": "ACGT" * 100})
+        monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+        with pytest.raises(NoDeviceError):
+            sharded_runner.run_sharded(["-r", fa], 2, str(tmp_path / "o"))
